@@ -1,7 +1,7 @@
-"""miniworld_tpu: a TPU-native MiniWorld engine (JAX / Pallas / pjit).
+"""miniworld_tpu: a batched MiniWorld engine in JAX.
 
 Brand-new implementation of the NomanTrips/Miniworld environment suite
-for TPU: fixed-shape array worlds, pure jitted physics, a software
+for accelerators: fixed-shape array worlds, pure jitted physics, a software
 raycaster replacing OpenGL, vectorized thousands-of-envs stepping with
 on-device auto-reset, and a gymnasium-compatible adapter.
 """

@@ -1,6 +1,6 @@
 """Environment specifications.
 
-An ``EnvSpec`` is the TPU-native analog of a reference env class
+An ``EnvSpec`` is the jittable analog of a reference env class
 (miniworld/envs/*.py): it declares the world builder, the action
 interface, and the per-step task logic (reward / termination / state
 edits) as pure functions over ``EnvState``. One spec serves both

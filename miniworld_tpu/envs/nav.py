@@ -287,13 +287,10 @@ class Maze(GoToEnvSpec):
     max_episode_steps: int = 0  # derived below
     # Default to reference reset semantics: a FRESH maze per episode,
     # generated on device (ops/mazegen.py; maze.py:100-149). The
-    # compiled layout bank (procgen=False) stays as the faster opt-in:
-    # measured round 5, procgen runs ~0.9x bank on MazeS3 B=2048
-    # (73.2k vs 82.0k env-steps/s) and ~0.43x on Maze 8x8 B=2048
-    # (21.3k vs 49.9k) — the 8x8 super bank is a dense scan (static
-    # culling is impossible: the all-open-maze PVS is complete, and
-    # per-env chunk schedules lose to the single-chunk scan's measured
-    # per-iteration overhead; PERF.md round 5).
+    # compiled layout bank (procgen=False) stays as an opt-in; which is
+    # faster on the GPU is not yet measured (ROADMAP A6). The 8x8 super
+    # bank is a dense scan: static culling is impossible (the
+    # all-open-maze PVS is complete).
     procgen_default: bool = True
 
     def __post_init__(self):

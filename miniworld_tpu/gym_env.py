@@ -6,10 +6,11 @@ Drop-in replacement for the reference's ``MiniWorldEnv`` API
 host-side in float64 numpy, transcribing the reference's exact op order
 and ``np_random`` consumption, so trajectories, rewards, and
 terminations are bit-exact against the reference under a fixed seed
-(BASELINE.md correctness target). Rendering uses the TPU raycaster in
+(the correctness target: bit-exact trajectories, rewards and
+terminations vs the reference). Rendering uses the raycaster in
 exact-texture mode on whatever backend JAX selects.
 
-The vectorized TPU path (vector.MiniWorldVec) is the performance
+The vectorized path (vector.MiniWorldVec) is the performance
 engine; this adapter exists for API parity, gym tooling (env-checker,
 wrappers), interactive use, and as the golden model for tests.
 """

@@ -12,7 +12,7 @@ LeRobot tooling is interchangeable:
 
 Design differences from the reference (this is not a port): the writer
 is batch-first — ``add_batch`` ingests whole (T, B, ...) rollout arrays
-from the vectorized TPU env and splits them into episodes on the done
+from the vectorized env and splits them into episodes on the done
 mask, while ``EpisodeWriter`` keeps the reference's one-episode
 interactive flow. Append/resume mode reloads info/tasks/episodes and
 continues indices like the reference (lerobot_writer.py:312-407).

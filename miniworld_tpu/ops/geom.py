@@ -1,6 +1,6 @@
-"""Pure-JAX geometry ops for the MiniWorld-TPU engine.
+"""Pure-JAX geometry ops for the vectorized MiniWorld engine.
 
-These are the TPU-native equivalents of the reference's math helpers
+These are the jittable equivalents of the reference's math helpers
 (reference: miniworld/math.py:11-62, miniworld/miniworld.py:273-285).
 Everything here is shape-static, mask-based and jit/vmap friendly.
 
@@ -62,7 +62,7 @@ def intersect_circle_segs(
 ) -> jax.Array:
     """True if an XZ circle intersects any valid 2D wall segment.
 
-    TPU-native variant of miniworld/math.py:30-62: the reference takes a
+    Jittable variant of miniworld/math.py:30-62: the reference takes a
     ragged list of segments; here ``segs`` is a fixed-shape (S, 2, 2)
     array of (x, z) endpoint pairs with a validity mask (padding rows
     are ignored).
@@ -98,11 +98,11 @@ def circle_segs4(point_xz: jax.Array, radius: jax.Array,
     """Circle-vs-segments over component-major (4, NS) segment packs.
 
     Lane-major layout of intersect_circle_segs: rows are
-    [a_x, a_z, b_x, b_z] with NS segments in the minor (lane) axis, so
-    every op is a lane-wide VPU op — the (NS, 2, 2) form's tiny inner
-    dims forced pathological (8,128) relayout copies on TPU (13 ms/step
-    on maze-scale scenes, see PERF.md round 2). Padding columns are
-    far-away unit segments (compile.SEG_PAD), never mask rows.
+    [a_x, a_z, b_x, b_z] with NS segments in the minor axis, so every
+    op is a wide elementwise op — the (NS, 2, 2) form's tiny inner dims
+    forced relayout copies on the chip this was tuned for (not yet
+    measured on the GPU). Padding columns are far-away unit segments
+    (compile.SEG_PAD), never mask rows.
     """
     ax, az, bx, bz = segs4[0], segs4[1], segs4[2], segs4[3]
     abx, abz = bx - ax, bz - az

@@ -3,7 +3,7 @@
 The reference builds a fresh recursive-backtracking maze every reset
 (miniworld/envs/maze.py:100-149): a DFS from cell (0,0) that shuffles
 the 4 neighbor directions per cell and opens the wall to each
-yet-unvisited neighbor it recurses into. The TPU engine needs the same
+yet-unvisited neighbor it recurses into. The batched engine needs the same
 *distribution* under jit+vmap with a fixed op budget, so this module
 implements the iterative form: a stack-based DFS that, at the top cell,
 picks uniformly among the *currently unvisited* neighbors.
@@ -20,11 +20,11 @@ i*(cols-1)+j) then the ``(rows-1)*cols`` vertical walls (between (i,j)
 and (i+1,j), id = H + i*cols + j). A generated maze opens exactly
 ``rows*cols - 1`` walls (spanning tree).
 
-TPU notes: the loop is a ``lax.scan`` over exactly ``2*N - 1`` steps
+Device notes: the loop is a ``lax.scan`` over exactly ``2*N - 1`` steps
 (each step pushes a new cell or pops — a DFS over N cells does N-1
-pushes and N pops). All dynamic indexing is one-hot compare/contract —
-XLA:TPU lowers gathers at ~16 ns/element, which would cost more than
-the whole generator.
+pushes and N pops). All dynamic indexing is one-hot compare/contract,
+a choice made for another chip, whose gathers cost more than the whole
+generator; not yet measured on the GPU (ROADMAP A1).
 """
 
 from __future__ import annotations

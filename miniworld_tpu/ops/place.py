@@ -51,7 +51,7 @@ def gate_segs4(segs4, codes, wall_open):
     scene/supermaze.py). Inactive segments are shifted far away (same
     convention as the pack's SEG_PAD padding) instead of masked — the
     distance test needs no extra operand. The wall lookup is a one-hot
-    contract (gathers cost ~16 ns/element on TPU).
+    contract rather than a gather (a choice made for another chip).
     """
     w = wall_open.shape[0]
     oh = (codes[:, None] == jnp.arange(w, dtype=jnp.int32)[None, :]).astype(

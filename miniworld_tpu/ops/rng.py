@@ -1,13 +1,13 @@
 """Counter-based cheap uniforms for per-env reset randomness.
 
-jax.random primitives lower threefry as a ROLLED while-loop on TPU;
-vmapped over thousands of envs inside the auto-reset path, the loop
-latency dominates the draw cost — two placement calls' key plumbing
-profiled at ~14% of the whole Maze 8x8 step. Reset-time randomness
+jax.random primitives lowered threefry as a ROLLED while-loop on the
+chip this was tuned for; vmapped over thousands of envs inside the
+auto-reset path, the loop latency dominated the draw cost (not yet
+measured on the GPU). Reset-time randomness
 (spawn rejection sampling, variant picks, maze DFS choices) does not
 need cryptographic-strength streams, so it is derived instead from a
 Wang/lowbias32-style integer mix keyed on (seed, counter) — pure
-elementwise VPU work, no loop. The same construction already drives
+elementwise work, no loop. The same construction already drives
 per-episode texture-variant draws (raycast.hash01, round 1) and is
 distribution-tested there and in tests/test_procgen.py.
 

@@ -2,13 +2,13 @@
 
 The reference ships no learner (its experiments/ are stale torch demos,
 SURVEY.md §2.11); this module exists to exercise the framework's
-stated deployment shape — sharded env batches feeding a sharded learner
-over ICI collectives — and to serve as the multi-chip dry-run model.
+stated deployment shape — sharded env batches feeding a data-parallel
+learner — and to serve as the multi-device dry-run model.
 
 Pure-JAX (no flax): params are a dict pytree, the network is a small
 bf16 CNN torso + policy/value heads, and the update is advantage
 actor-critic over on-device rollouts. Under ``shard_map`` the gradient
-is ``psum``-averaged over the ``data`` mesh axis — the only cross-chip
+is ``pmean``-averaged over the ``data`` mesh axis — the only cross-device
 communication in the system (env stepping itself is embarrassingly
 parallel over the batch).
 """
@@ -69,10 +69,10 @@ def init_params(key: jax.Array, obs_shape, num_actions: int,
 _LOG_2PI = math.log(2.0 * math.pi)
 
 
-def gaussian_sample(params, mean, key):
-    """Sample the diagonal-Gaussian policy: mean + exp(log_std) * eps."""
-    std = jnp.exp(params["log_std"])
-    return mean + std * jax.random.normal(key, mean.shape, mean.dtype)
+def gaussian_sample(params, mean, eps):
+    """Sample the diagonal-Gaussian policy from standard-normal noise
+    ``eps``: mean + exp(log_std) * eps."""
+    return mean + jnp.exp(params["log_std"]) * eps
 
 
 def gaussian_logp(params, mean, actions):

@@ -1,12 +1,12 @@
-"""Device mesh + sharding helpers for multi-chip / multi-host scaling.
+"""Device mesh + sharding helpers for multi-device data parallelism.
 
 The reference has no distributed runtime at all (SURVEY.md §2.12: its
 "multiple processes" claim is one env per OS process). Here the env
 *batch* axis is the parallel axis: state pytrees are sharded over a 1-D
-``data`` mesh axis spanning all chips (ICI within a slice, DCN across
-hosts), stepping runs under ``shard_map`` with zero cross-env
-communication, and collectives appear only in the learner (gradient
-``psum``) — the layout recommended by the scaling-book recipe: pick a
+``data`` mesh axis spanning every device (on one host the cards are
+joined all to all by NVLink, so one axis needs no topology), stepping
+runs under ``shard_map`` with zero cross-env communication, and
+collectives appear only in the learner (gradient ``pmean``): pick a
 mesh, annotate shardings, let XLA insert collectives.
 """
 
@@ -31,29 +31,26 @@ def make_mesh(n_devices: int | None = None, devices=None) -> Mesh:
 
 
 def init_multihost():
-    """Initialize the multi-host process group (no-op when single).
+    """Join a multi-process run when one is configured; else a no-op.
 
-    Fail-fast contract (SURVEY.md §5): when the environment says this
-    IS a multi-host launch (a coordinator address is configured), an
-    initialization failure raises immediately instead of silently
-    degrading to a single-host run that would train on a fraction of
-    the batch. Only the unconfigured single-process case falls through.
+    A run is configured by ``JAX_COORDINATOR_ADDRESS`` (host:port) with
+    ``JAX_NUM_PROCESSES`` and ``JAX_PROCESS_ID``. Any initialization
+    error raises: a silent single-process fallback would train on a
+    fraction of the batch.
     """
-    if jax.process_count() > 1:
-        return  # already initialized by the launcher
-    configured = any(
-        os.environ.get(k)
-        for k in ("JAX_COORDINATOR_ADDRESS", "COORDINATOR_ADDRESS")
+    address = os.environ.get("JAX_COORDINATOR_ADDRESS")
+    if not address:
+        return
+
+    def env_int(name):
+        value = os.environ.get(name)
+        return int(value) if value else None
+
+    jax.distributed.initialize(
+        coordinator_address=address,
+        num_processes=env_int("JAX_NUM_PROCESSES"),
+        process_id=env_int("JAX_PROCESS_ID"),
     )
-    try:
-        jax.distributed.initialize()
-    except Exception as e:
-        if configured:
-            raise RuntimeError(
-                "multi-host init failed with a coordinator configured "
-                f"(fail-fast, refusing single-host fallback): {e}"
-            ) from e
-        # no cluster configured: normal single-process run
 
 
 def env_sharding(mesh: Mesh) -> NamedSharding:
@@ -74,3 +71,18 @@ def shard_env_batch(mesh: Mesh, tree):
 def replicate(mesh: Mesh, tree):
     r = replicated(mesh)
     return jax.tree.map(lambda x: jax.device_put(x, r), tree)
+
+
+def local_rows(draw, key, n_global: int, n_local: int):
+    """This shard's rows of ``draw(key, n_global)``, inside shard_map.
+
+    Per-env random draws are made over the GLOBAL batch and sliced, so
+    an env's draw depends on its global index and not on how the batch
+    is sharded: one device and four produce the same actions. (The
+    draws are a few numbers per env, so drawing the whole batch on
+    every device costs nothing measurable.)
+    """
+    start = jax.lax.axis_index(DATA_AXIS) * n_local
+    return jax.lax.dynamic_slice_in_dim(
+        draw(key, n_global), start, n_local, axis=0
+    )

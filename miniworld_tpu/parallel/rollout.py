@@ -19,12 +19,30 @@ import jax
 from jax import shard_map
 from jax.sharding import PartitionSpec as P
 
-from miniworld_tpu.parallel.mesh import DATA_AXIS, shard_env_batch
+from miniworld_tpu.parallel.mesh import (
+    DATA_AXIS, local_rows, replicate, shard_env_batch,
+)
 
 _COLLECTIVE_OPS = (
     "all-reduce", "all-gather", "all-to-all", "collective-permute",
     "reduce-scatter", "collective-broadcast",
 )
+
+
+def replicated_tables(env, mesh):
+    """``get() -> (bank, atlas)``: the env's tables replicated over
+    ``mesh``, copied once per bank the env installs (refresh_layouts
+    swaps it). Passing the env's single-device arrays to a mesh program
+    would copy them to every device on every call."""
+    held = []  # [source pair, replicated pair]
+
+    def get():
+        src = (env._bank, env._atlas)
+        if not held or held[0][0] is not src[0] or held[0][1] is not src[1]:
+            held[:] = [src, replicate(mesh, src)]
+        return held[1]
+
+    return get
 
 
 def make_sharded_rollout(env, mesh, horizon: int, *, policy=None):
@@ -38,24 +56,30 @@ def make_sharded_rollout(env, mesh, horizon: int, *, policy=None):
         (n_shards, horizon)
       compiled_has_collectives(*args) -> bool   HLO inspection hook
 
+    The default random policy draws each env's action by its global
+    index (``local_rows``), so results do not depend on the mesh size.
+    A custom ``policy(obs, depth, key)`` receives the per-step key
+    unchanged on every shard.
+
     (Learners that need stacked per-env observations/actions shard
     through make_train_step/make_ppo_step instead — their rollouts run
     inside the sharded train step.)
     """
-    base = env.rollout_fn(horizon, policy=policy)
 
-    def shard_fn(bank, atlas, state, obs, depth, key):
-        # distinct randomness per shard: fold the mesh position in
-        key = jax.random.fold_in(key, jax.lax.axis_index(DATA_AXIS))
-        return base(bank, atlas, state, obs, depth, key)
+    def random_policy(obs, depth, key):
+        n_local = jax.tree.leaves(obs)[0].shape[0]
+        return local_rows(env.sample_actions, key, env.num_envs, n_local)
+
+    base = env.rollout_fn(horizon, policy=policy or random_policy)
 
     sharded = shard_map(
-        shard_fn, mesh=mesh,
+        base, mesh=mesh,
         in_specs=(P(), P(), P(DATA_AXIS), P(DATA_AXIS), P(DATA_AXIS), P()),
         out_specs=(P(DATA_AXIS), P(DATA_AXIS), P(DATA_AXIS), P(DATA_AXIS)),
         check_vma=False,
     )
     fn = jax.jit(sharded)
+    tables = replicated_tables(env, mesh)
 
     def init(key):
         keys = jax.random.split(key, env.num_envs)
@@ -67,12 +91,10 @@ def make_sharded_rollout(env, mesh, horizon: int, *, policy=None):
         return state, obs, depth
 
     def step(state, obs, depth, key):
-        return fn(env._bank, env._atlas, state, obs, depth, key)
+        return fn(*tables(), state, obs, depth, key)
 
     def compiled_has_collectives(state, obs, depth, key) -> bool:
-        txt = fn.lower(
-            env._bank, env._atlas, state, obs, depth, key
-        ).compile().as_text()
+        txt = fn.lower(*tables(), state, obs, depth, key).compile().as_text()
         return any(op in txt for op in _COLLECTIVE_OPS)
 
     return SimpleNamespace(

@@ -1,22 +1,16 @@
 """Sharded train step: env rollout + A2C learner over a device mesh.
 
-One jitted program per call: under ``shard_map`` each chip steps its
+One jitted program per call: under ``shard_map`` each device steps its
 shard of the env batch (rollout with the current policy), computes
-learner gradients locally, and joins a single ``pmean`` — the complete
-"sharded envs feed a sharded learner over ICI collectives" deployment
-shape from BASELINE.json's north star. This is also what the driver's
-multi-chip dry-run executes.
+learner gradients locally, and joins a single ``pmean`` — sharded envs
+feeding a data-parallel learner. ``__graft_entry__.dryrun_multichip``
+and ``chip_smoke.py --gpus 4`` run it across devices.
 
 The gradient is computed on the transitions the policy itself produced:
 ``rollout_fn(return_obs=True, return_actions=True)`` records the
 acted-on observations, the sampled actions, per-env rewards and done
 flags; returns are n-step discounted sums bootstrapped from the critic
 at the post-rollout observation, cut at auto-reset boundaries.
-
-Note: the round-1 commit 2816e30 claimed this wiring but only added the
-``return_actions`` option to vector.py — the trainer still fed randomly
-sampled actions into the loss. This module is the actual fix; the
-learning curve is recorded in PERF.md.
 """
 
 from __future__ import annotations
@@ -27,7 +21,8 @@ from jax import shard_map
 from jax.sharding import PartitionSpec as P
 
 from miniworld_tpu.parallel import learner as L
-from miniworld_tpu.parallel.mesh import DATA_AXIS
+from miniworld_tpu.parallel.mesh import DATA_AXIS, local_rows
+from miniworld_tpu.parallel.rollout import replicated_tables
 
 
 def discounted_returns(rewards, dones, bootstrap, gamma: float):
@@ -89,15 +84,29 @@ def _policy_spec(env) -> tuple[int, bool]:
     return 6, True
 
 
-def _policy_factory(params, continuous: bool):
+def _policy_factory(params, continuous: bool, n_global: int):
+    """Policy for the sharded rollout. Its noise is drawn per env by
+    global index (``local_rows``), so a step samples the same actions
+    whatever the mesh size."""
+
     def policy(obs, depth, key):
         # the IMAGE leaf (dict-obs envs like Sign put a scalar goal
         # leaf first in tree.leaves order)
         rgb = obs["obs"] if isinstance(obs, dict) else obs
         out, _ = L.forward(params, rgb, depth)
+        n_local, width = out.shape
         if continuous:
-            return L.gaussian_sample(params, out, key)
-        return jax.random.categorical(key, out)
+            eps = local_rows(
+                lambda k, n: jax.random.normal(k, (n, width), out.dtype),
+                key, n_global, n_local,
+            )
+            return L.gaussian_sample(params, out, eps)
+        # Gumbel-max: the draw jax.random.categorical makes
+        gumbel = local_rows(
+            lambda k, n: jax.random.gumbel(k, (n, width), out.dtype),
+            key, n_global, n_local,
+        )
+        return jnp.argmax(out + gumbel, axis=-1)
     return policy
 
 
@@ -122,10 +131,9 @@ def make_train_step(env, mesh, horizon: int = 4, lr: float = 3e-4,
     num_actions, continuous = _policy_spec(env)
 
     def local_train(bank, atlas, tstate, state, obs, depth, key):
-        key = jax.random.fold_in(key, jax.lax.axis_index(DATA_AXIS))
         params = tstate["params"]
         rollout = env.rollout_fn(
-            horizon, policy=_policy_factory(params, continuous),
+            horizon, policy=_policy_factory(params, continuous, env.num_envs),
             return_obs=True, return_actions=True)
         state, obs, depth, outs = rollout(bank, atlas, state, obs, depth, key)
 
@@ -170,12 +178,13 @@ def make_train_step(env, mesh, horizon: int = 4, lr: float = 3e-4,
         check_vma=False,
     )
     train_jit = jax.jit(train)
+    tables = replicated_tables(env, mesh)
 
     def step(tstate, state, obs, depth, key):
-        return train_jit(env._bank, env._atlas, tstate, state, obs, depth, key)
+        return train_jit(*tables(), tstate, state, obs, depth, key)
 
     # HLO-inspection hook (tests assert the gradient all-reduce exists)
-    step.lower = lambda *a: train_jit.lower(env._bank, env._atlas, *a)
+    step.lower = lambda *a: train_jit.lower(*tables(), *a)
     return step, _make_init(env, num_actions, continuous)
 
 
@@ -211,12 +220,12 @@ def make_ppo_step(env, mesh, horizon: int = 16, lr: float = 3e-4,
     shard_map program (rollout, GAE, and every minibatch update run on
     device; gradients pmean over the mesh per minibatch).
 
-    TPU-conscious deviation from the textbook shuffle: minibatches are
-    CONTIGUOUS slices of the time-major (T*B) transition set, with a
-    random rotation (``jnp.roll``) per epoch. A true per-epoch
-    permutation would row-gather the whole observation stack
-    (~16 ns/element on TPU — seconds per epoch at training scale); the
-    roll is two dynamic slices and still varies minibatch composition
+    Deviation from the textbook shuffle: minibatches are CONTIGUOUS
+    slices of the time-major (T*B) transition set, with a random
+    rotation (``jnp.roll``) per epoch. A true per-epoch permutation
+    would row-gather the whole observation stack, which was slow on the
+    chip this was written for (not yet measured on the GPU); the roll
+    is two dynamic slices and still varies minibatch composition
     across epochs. Transitions within a slice come from many different
     envs (B-major inner order), so minibatches are already decorrelated
     across episodes.
@@ -230,11 +239,12 @@ def make_ppo_step(env, mesh, horizon: int = 16, lr: float = 3e-4,
     mb = n_loc // minibatches
 
     def local_train(bank, atlas, tstate, state, obs, depth, key):
-        key = jax.random.fold_in(key, jax.lax.axis_index(DATA_AXIS))
         k_roll, k_sgd = jax.random.split(key)
+        # minibatch rotations are per shard
+        k_sgd = jax.random.fold_in(k_sgd, jax.lax.axis_index(DATA_AXIS))
         params = tstate["params"]
         rollout = env.rollout_fn(
-            horizon, policy=_policy_factory(params, continuous),
+            horizon, policy=_policy_factory(params, continuous, env.num_envs),
             return_obs=True, return_actions=True)
         state, obs, depth, outs = rollout(
             bank, atlas, state, obs, depth, k_roll
@@ -335,10 +345,11 @@ def make_ppo_step(env, mesh, horizon: int = 16, lr: float = 3e-4,
         check_vma=False,
     )
     train_jit = jax.jit(train)
+    tables = replicated_tables(env, mesh)
 
     def step(tstate, state, obs, depth, key):
-        return train_jit(env._bank, env._atlas, tstate, state, obs, depth, key)
+        return train_jit(*tables(), tstate, state, obs, depth, key)
 
     # HLO-inspection hook (tests assert the gradient all-reduce exists)
-    step.lower = lambda *a: train_jit.lower(env._bank, env._atlas, *a)
+    step.lower = lambda *a: train_jit.lower(*tables(), *a)
     return step, _make_init(env, num_actions, continuous)

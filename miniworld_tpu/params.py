@@ -1,12 +1,12 @@
 """Domain-randomization parameter registry.
 
-TPU-native counterpart of the reference's DomainParams
+Jittable counterpart of the reference's DomainParams
 (miniworld/params.py:7-130). Same registry semantics — named parameters
 with (default, min, max) and uniform sampling, where a ``None`` rng
 yields the default — but sampling is available both host-side (numpy
 Generator, used by the gymnasium adapter for bit-parity with the
 reference's rng consumption) and device-side (jax.random, used by the
-vectorized TPU path).
+vectorized path).
 
 The registry is immutable-by-copy like the reference: ``no_random()``
 and ``set()`` return/modify copies so env-specific overrides (e.g.
@@ -92,7 +92,7 @@ class DomainParams:
         for name in names:
             setattr(target_obj, name, self.sample(rng, name))
 
-    # -- device-side sampling (jax.random; vectorized TPU path) ---------
+    # -- device-side sampling (jax.random; vectorized path) ---------
 
     def jax_sample(self, key: jax.Array, name: str, randomize) -> jax.Array:
         """Sample one parameter on device.

@@ -1,34 +1,39 @@
-"""TPU raycaster: RGB-D observations without OpenGL and without gathers.
+"""Raycaster: RGB-D observations without OpenGL and without gathers.
 
 Replaces the reference's fixed-function GL pipeline
 (miniworld/miniworld.py:1260-1318, miniworld/opengl.py:197-435) with a
-pure-JAX perspective raycaster designed around TPU realities:
+pure-JAX perspective raycaster that XLA compiles for the accelerator:
 
   * Ray-triangle intersection is algebraically rearranged so the
-    per-(pixel, triangle) work is THREE MATMULS ``(HW,3) @ (3,TC)`` —
-    MXU work — plus cheap elementwise masking: for ray ``o + t*d`` and
-    triangle (v0, e1, e2),
+    per-(pixel, triangle) work is three separable contractions plus
+    cheap elementwise masking: for ray ``o + t*d`` and triangle
+    (v0, e1, e2),
 
         det   = d . (e2 x e1)
         u*det = d . (e2 x (o-v0))
         v*det = d . ((o-v0) x e1)
         t*det = e2 . ((o-v0) x e1)        (pixel-independent!)
 
-  * **Per-pixel gathers are eliminated entirely.** Measured on TPU
-    v5e, XLA lowers per-pixel gathers to ~16 ns/element — 50x slower
-    than everything else combined. Instead:
+  * **No per-pixel gathers.** The design was made for another chip,
+    where per-pixel gathers lowered to slow element-wise loads; it has
+    not been measured on the GPU yet (ROADMAP A3/A4/D1). Instead:
       - Triangle attributes are resolved *inside* the chunk scan: the
         within-chunk winner per pixel becomes a one-hot row that is
         contracted against the chunk's packed attribute table — an
-        ``(HW, TC) @ (TC, 16)`` matmul (MXU), carried across chunks
+        ``(HW, TC) @ (TC, 16)`` matrix product, carried across chunks
         with the running z-buffer.
       - Texture sampling uses the Fourier texture model (see
         textures.fit_fourier_texture): the winning texture's packed
-        coefficients are selected with a small one-hot matmul over the
-        env's texture slots, then evaluated as K cosine terms on the
-        VPU. GL_REPEAT tiling is exact (integer frequencies).
+        coefficients are selected with a small one-hot product over
+        the texture table, then evaluated as K cosine terms per pixel.
+        GL_REPEAT tiling is exact (integer frequencies).
   * A ``lax.scan`` over triangle chunks keeps memory O(HW * 16), not
     O(HW * S).
+  * Matrix-product precision is named at every f32 product: XLA's
+    DEFAULT lets the GPU round f32 operands to TF32 (10-bit mantissa),
+    so geometry and exact-id selects ask for HIGHEST (``matmul_f32``)
+    and the bf16 attribute resolve rounds its operands to bf16 itself
+    (``_select_rows``).
   * Backface culling (det > 0) reproduces GL_CULL_FACE; ray parameter t
     equals eye-space Z because ray directions are built with a unit
     forward component, so the depth map matches the reference's
@@ -80,6 +85,36 @@ _ONE = _KIND  # mesh-entity rows: same column, literal 1.0
 # reference's GL_UNSIGNED_SHORT depth buffer (opengl.py:400-435).
 _IDX_BITS = 10
 _IDX_MASK = (1 << _IDX_BITS) - 1
+
+
+def matmul_f32(a, b):
+    """``a @ b`` in full f32. At DEFAULT precision the GPU may run an f32
+    product on the tensor cores in TF32, which rounds each operand to a
+    10-bit mantissa: enough to move a silhouette or a texture
+    coordinate, and exact for integers only up to 2048."""
+    return jnp.matmul(a, b, precision=jax.lax.Precision.HIGHEST)
+
+
+def _select_rows(onehot, table, out_dtype):
+    """``onehot^T @ table`` for an (N, HW) one-hot with at most one 1
+    per column: each pixel's selected (ATTR_DIM,) table row, or zeros.
+
+    bf16 output: both operands are rounded to bf16 BEFORE the product.
+    With a single nonzero term that gives the same bits as rounding the
+    exact f32 product after it, on every backend, and the product runs
+    as a bf16 matrix product. f32 output: HIGHEST, so slot ids past
+    2048 and uv-map coefficients are not rounded to TF32 on the GPU.
+    """
+    dims = (((0,), (0,)), ((), ()))
+    if out_dtype == jnp.bfloat16:
+        return jax.lax.dot_general(
+            onehot.astype(jnp.bfloat16), table.astype(jnp.bfloat16), dims,
+            preferred_element_type=jnp.bfloat16,
+        )
+    return jax.lax.dot_general(
+        onehot, table, dims, precision=jax.lax.Precision.HIGHEST,
+        preferred_element_type=jnp.float32,
+    ).astype(out_dtype)
 
 
 def camera_grid(state, width: int, height: int):
@@ -197,8 +232,8 @@ def _tri_pass(verts9_bank, attr_bank, layout_id, origin, rays,
     killed triangle's r is exactly 0 and fails the r > 1/FAR gate —
     zero per-pixel cost. Dense scans only (asserted).
 
-    ``attr_dtype`` (static): the resolved-attr carry dtype. bf16 is
-    bit-lossless ONLY while the slot column's integer ids stay <= 256
+    ``attr_dtype`` (static): the resolved-attr carry dtype. bf16 keeps
+    the slot column's integer ids exact ONLY while they stay <= 256
     (8-bit mantissa); render_rgbd picks f32 automatically when the
     texture table is larger (attr_carry_dtype) instead of silently
     rounding ids — big nearest-mode slot tables (a 10x10 maze has
@@ -207,8 +242,9 @@ def _tri_pass(verts9_bank, attr_bank, layout_id, origin, rays,
     The vector layer repads the bank so ``S % tri_chunk == 0``
     (MiniWorldVec._repad_for_chunks): chunk boundaries then align
     cleanly, and vertex reads come from the component-major
-    ``tri_verts9`` rows — avoiding the tiny-inner-dim relayout
-    copies the (TC, 3, 3) gathers forced (~9 ms/step on maze).
+    ``tri_verts9`` rows rather than (TC, 3, 3) gathers with a tiny
+    inner dimension (a layout chosen for another chip; not yet
+    measured on the GPU).
     """
     num_tris = verts9_bank.shape[-1]
     tri_chunk = min(tri_chunk, num_tris)
@@ -220,16 +256,16 @@ def _tri_pass(verts9_bank, attr_bank, layout_id, origin, rays,
         """(v9 (9, TC), attrs (TC, ATTR_DIM)) for chunk index c.
 
         No mask read: padding triangles are all-zero by construction,
-        so det == 0 and they can never hit (the per-chunk mask slice
-        measured 4 ms/step on maze for pure redundancy).
+        so det == 0 and they can never hit.
 
         ``chunk_rows`` = (v9_rows (L*NC, 9*TC), attr_rows
         (L*NC, TC*ATTR_DIM), n_chunks_per_layout): read the chunk with
-        ONE one-hot MXU matmul per operand instead of a per-env
-        dynamic_slice — vmapped dynamic slices over the layout axis
-        lower as while-loop gathers (measured 4.5 ms/step on Maze's
-        packed banks). HIGHEST precision keeps f32 vertex coordinates
-        (and nearest-mode slot ids) exact through the dot.
+        ONE one-hot matrix product per operand instead of a per-env
+        dynamic_slice, which lowered as a while-loop gather when
+        vmapped over the layout axis on the chip this was tuned for
+        (unmeasured on the GPU; ROADMAP A4). HIGHEST precision keeps
+        f32 vertex coordinates (and nearest-mode slot ids) exact
+        through the dot.
         """
         if chunk_rows is not None:
             assert slot_key is None, "chunk_rows excludes the dr override"
@@ -340,9 +376,8 @@ def _tri_pass(verts9_bank, attr_bank, layout_id, origin, rays,
         t_num = e2x * gvx + e2y * gvy + e2z * gvz  # (TC,)
         # Reciprocal-depth competition: t = t_num / det per (tri, px),
         # but 1/t = det * (1/t_num) needs only a PER-TRIANGLE
-        # reciprocal — the per-(tri, px) divide (the costliest op in
-        # the dominant fusion, ~multi-pass on the VPU) becomes one
-        # multiply, and min-t becomes max-r. Triangles with t_num <= 0
+        # reciprocal — the per-(tri, px) divide becomes one multiply,
+        # and min-t becomes max-r. Triangles with t_num <= 0
         # cannot give t > NEAR under det > 0; zeroing their reciprocal
         # makes r = 0 fail the r > 1/FAR gate.
         inv_tnum = jnp.where(
@@ -354,20 +389,18 @@ def _tri_pass(verts9_bank, attr_bank, layout_id, origin, rays,
             inv_tnum = inv_tnum * act
 
         # Per-(tri,pixel) contractions as broadcast FMAs in (TC, HW)
-        # orientation: triangles lead, pixels minor — the z-buffer
-        # reduce then runs over the leading axis (lane-wise reductions
-        # over a TC minor axis measured ~6.5ms/step on FourRooms).
-        # K=3 dots are avoided entirely (their convolution-fusion
-        # outputs need layout copies costing 2x the math).
-        # Broadcast FMAs on the VPU — measured AGAIN in round 2 to beat
-        # a packed (3TC, 3) @ (3, HW) dot_general by 2.3x on maze (the
-        # K=3 contraction can't tile the MXU; its lowering also
-        # produced edge cracks — rgb diffs to 205, depth off by 40x at
-        # silhouettes). This op is at the f32 VPU roofline — which is
-        # why the ray SEPARABILITY matters: d = fwd + xv*right + yv*up
-        # (camera_grid), so g . d = (g.fwd) + xv*(g.right) + yv*(g.up)
-        # with the three basis dots hoisted to per-TRI (TC,) work —
-        # 2 FMAs per (tri, pixel) instead of 3.
+        # orientation: triangles lead, pixels minor, so the z-buffer
+        # reduce runs over the leading axis. K=3 dots are avoided: a
+        # K=3 contraction cannot use a matrix unit, and on the chip
+        # this was tuned for its lowering produced edge cracks at
+        # silhouettes. Exact f32
+        # elementwise math keeps the hit test identical across
+        # backends up to FMA contraction. The ray SEPARABILITY
+        # d = fwd + xv*right + yv*up (camera_grid) makes
+        # g . d = (g.fwd) + xv*(g.right) + yv*(g.up) with the three
+        # basis dots hoisted to per-TRI (TC,) work — 2 FMAs per (tri,
+        # pixel) instead of 3. (Layout choices made for another chip;
+        # their cost on the GPU is not yet measured, ROADMAP A2.)
         def contract(gx, gy, gz):
             a = gx * fwd[0] + gy * fwd[1] + gz * fwd[2]  # (TC,)
             b = gx * right[0] + gy * right[1] + gz * right[2]
@@ -412,38 +445,31 @@ def _tri_pass(verts9_bank, attr_bank, layout_id, origin, rays,
         # depth; quantizing r to a 13-bit mantissa is far finer than
         # the reference's 16-bit GL depth buffer, opengl.py:400-435).
         # The attribute one-hot is then a pure INTEGER COMPARE against
-        # the winning index — without it, XLA rematerialized the whole
-        # det/u/v hit test inside the one-hot's producer fusion
-        # (profiled at ~70% of the primary pass on maze) because the
-        # (TC, HW) intermediates are never materialized. Ties at equal
-        # quantized depth pick the larger row index (GL z-fighting is
-        # order-dependent too).
+        # the winning index, so the one-hot's producer never has to
+        # recompute the det/u/v hit test (the (TC, HW) intermediates
+        # are never materialized). Ties at equal quantized depth pick
+        # the larger row index (GL z-fighting is order-dependent too).
         rkey = jax.lax.bitcast_convert_type(r, jnp.int32)
         idx = jax.lax.broadcasted_iota(jnp.int32, (r.shape[0], 1), 0)
         key = jnp.where(hit, (rkey & ~_IDX_MASK) | idx, 0)
 
         key_max = jnp.max(key, axis=0)  # (HW,)
         ohf = (idx == (key_max & _IDX_MASK)[None, :]).astype(jnp.float32)
-        # attribute resolve: (TC, HW)^T @ (TC, 16) — MXU, no gather.
+        # attribute resolve: (TC, HW)^T @ (TC, 16), no gather.
         # (A no-hit pixel selects row 0's attrs; its key stays 0 so the
         # carry never takes them, and the final t is inf -> sky.)
-        # The result is carried in bf16: XLA already feeds the attr
-        # operand to the MXU as bf16 (default f32 matmul precision on
-        # TPU), and the one-hot contraction of a single row makes the
-        # f32 accumulator value exactly bf16-representable — so the
-        # downcast is bit-lossless vs today's pipeline while HALVING
-        # the (B, HW, 16) carry/select/divide HBM streams (profiled at
-        # ~6.7 ms of Hallway's 16.5 ms step, PERF.md round 4).
-        sel = jax.lax.dot_general(
-            ohf, attrs,
-            dimension_numbers=(((0,), (0,)), ((), ())),
-            preferred_element_type=jnp.float32,
-        ).astype(attr_dtype)  # (HW, 16)
+        # The carry is bf16 while slot ids fit (attr_carry_dtype): it
+        # halves the (B, HW, 16) carry/select streams, and
+        # _select_rows makes it the same bits on the GPU as on the CPU.
+        # An f32 carry resolves at HIGHEST precision.
+        sel = _select_rows(ohf, attrs, attr_dtype)  # (HW, 16)
         return key_max, sel
 
     def body(carry, x):
-        # barrier: XLA:TPU otherwise fuses/remats iterations of this
-        # scan into one (B, HW, S) buffer — 22 GB for an 8x8 maze
+        # barrier: keeps XLA from fusing or rematerializing iterations
+        # of this scan into one (B, HW, S) buffer, as it did on the chip
+        # this was tuned for (whether the GPU needs it is not yet
+        # measured, ROADMAP D1)
         carry = jax.lax.optimization_barrier(carry)
         key_best, attr_best = carry
         key_max, sel = chunk_compete(x)
@@ -476,8 +502,7 @@ def _tri_pass(verts9_bank, attr_bank, layout_id, origin, rays,
         init = (seed_key, init[1].astype(attr_dtype))
     # Chunk data is gathered BEFORE the scan (vmapped read_chunk) and
     # fed as scan xs: the scan then unstacks plain slices instead of
-    # issuing per-iteration dynamic slices whose scalar offsets stall
-    # the pipeline (~7 ms/step of s32 slice chains on maze).
+    # issuing per-iteration dynamic slices with scalar offsets.
     cs = jnp.arange(n_chunks, dtype=jnp.int32) if chunk_sched is None else chunk_sched
     xs = jax.vmap(read_chunk)(cs)
     if tri_active is not None:
@@ -486,7 +511,7 @@ def _tri_pass(verts9_bank, attr_bank, layout_id, origin, rays,
     if int(cs.shape[0]) == 1 and seeded_init is None:
         # single-chunk schedule, no seed (Maze packed sched-1, Hallway):
         # skip the scan — and with it the zero-init broadcast and the
-        # (B, HW, 16) carry select (profiled ~6% of the Maze step).
+        # (B, HW, 16) carry select.
         # No-hit pixels return key 0 (t = inf -> sky) with chunk row
         # 0's attrs, which nothing downstream reads for sky pixels.
         key_best, attr_best = chunk_compete(
@@ -498,10 +523,10 @@ def _tri_pass(verts9_bank, attr_bank, layout_id, origin, rays,
     # (the packed row index disambiguates equal quantized depths), the
     # mesh-pass seed arrives already normalized, and no-hit pixels stay
     # at the all-zero init — the ones column is always exactly 0 or 1
-    # here (the divide measured ~1 ms/step of pure redundancy).
-    # attr_best RETURNS bf16: materializing a full f32 copy for the
-    # downstream uv/shade/slot consumers measured 0.95 ms/step; mixed
-    # bf16xf32 arithmetic promotes to f32 in-register, same values.
+    # here.
+    # attr_best RETURNS the carry dtype: downstream uv/shade/slot
+    # consumers promote bf16 x f32 arithmetic to f32 in-register, with
+    # the same values as an explicit f32 copy.
     r_best = jax.lax.bitcast_convert_type(key_best & ~_IDX_MASK,
                                           jnp.float32)
     t_best = jnp.where(key_best > 0, 1.0 / jnp.maximum(r_best, 1e-30),
@@ -518,9 +543,8 @@ def attr_carry_dtype(tex, state) -> "jnp.dtype":
     carries layout-LOCAL slot ids resolved later through
     ``state.tex_map`` (a 10x10 maze's 3 x #rooms local slots exceed
     256 — silently rounding them cross-assigned roles/rooms). The
-    halving of the (B, HW, 16) attr streams is kept wherever exact
-    (measured +17% on Hallway, PERF.md round 4); bigger tables pay
-    the f32 carry instead of refusing to construct.
+    half-width (B, HW, 16) attr streams are kept wherever exact;
+    bigger tables pay the f32 carry instead of refusing to construct.
     """
     n_ids = tex["coeffs"].shape[0] if tex["mode"] == "fourier" \
         else state.tex_map.shape[0]
@@ -533,10 +557,10 @@ def _cos_sin_turns(phi: jax.Array):
     The Fourier texture model only ever needs cos/sin at integer
     frequencies times uv, i.e. periodic in whole turns — so wrap the
     phase to t in [-1/2, 1/2] with one round() and evaluate degree-4
-    polynomials in t^2 (~12 VPU ops for BOTH outputs). XLA:TPU's
-    cos/sin intrinsics pay general argument reduction + higher-degree
-    cores twice; this fusion was ~15% of the Hallway step (profiled,
-    PERF.md round 4). Max abs error 1.2e-4 — 16x below u8 texel
+    polynomials in t^2 (~12 multiply-adds for BOTH outputs) instead of
+    two library calls with general argument reduction. Chosen for
+    another chip, whose cos/sin were costly; not yet measured on the
+    GPU (ROADMAP D1). Max abs error 1.2e-4 — 16x below u8 texel
     quantization (tested vs jnp.cos/sin in tests/test_render.py).
     """
     t = phi - jnp.round(phi)
@@ -568,24 +592,24 @@ def eval_fourier(coeffs_env: jax.Array, slot: jax.Array, uv: jax.Array,
     k = k_terms
     a0 = 3 + 2 * k
 
-    # Structure chosen from profiling on v5e:
+    # Structure (chosen for another chip; not yet measured on the GPU,
+    # ROADMAP A3):
     #  * cos/sin are computed ONCE per pixel on the winning texture's
-    #    frequencies (selected by a small one-hot matmul) — per-slot
-    #    re-evaluation multiplied the dominant transcendental cost by T;
-    #  * the amplitude contractions run as ONE MXU matmul
-    #    (HW,2K)@(2K,3T) — lane-wise jnp.sum reductions of (HW,K)
-    #    lowered pathologically (~100x) on TPU;
+    #    frequencies (selected by a small one-hot product) — per-slot
+    #    re-evaluation would multiply the transcendental cost by T;
+    #  * the amplitude contractions run as matrix products
+    #    (HW,K)@(K,3T) instead of (HW,K) reductions;
     #  * per-pixel slot selection of the 3T sums is a tiny masked sum.
-    # ONE bf16 one-hot for every selection dot in this stage: with a
-    # mixed f32/bf16 consumer set XLA materialized the (B, HW, A)
-    # one-hot TWICE in f32 plus a bf16 copy (profiled at ~11% of the
-    # Maze step); all-bf16 operands collapse that to a single half-width
-    # materialization, and the MXU's default f32 precision was already
-    # converting every operand to bf16 — numerically identical.
+    # Every selection and amplitude product in this stage has bf16
+    # OPERANDS, set here explicitly: one half-width (B, HW, A) one-hot
+    # feeds every dot, and the result does not depend on a backend's
+    # DEFAULT f32 precision (TF32 on the GPU, f32 on the CPU). Texel error from the bf16 amplitudes stays under a u8
+    # level (tests/test_render.py holds the Fourier path to the exact
+    # nearest sampler).
     oh = (slot_i[:, None] == jnp.arange(n_slots)[None, :]).astype(jnp.bfloat16)
     # frequency selection in bf16: frequencies are small integers
     # (exact in bf16 up to 256) and the half-width intermediate halves
-    # the HBM traffic of this memory-bound op
+    # the memory traffic of this memory-bound op
     freqs = jax.lax.dot_general(
         oh,
         coeffs_env[:, 3:3 + 2 * k].astype(jnp.bfloat16),
@@ -604,23 +628,22 @@ def eval_fourier(coeffs_env: jax.Array, slot: jax.Array, uv: jax.Array,
         # several periods of a term averages that term to ~zero, so
         # attenuate each term by a rational low-pass in (freq x
         # footprint). Kills distance moire on high-frequency textures
-        # (checkerboard floors); costs ~10% of the render (a handful of
-        # (HW, K) VPU ops).
+        # (checkerboard floors); a handful of (HW, K) elementwise ops.
         f2 = fu * fu + fv * fv  # (HW, K)
         att = 1.0 / (1.0 + (math.pi ** 2) * f2 * (footprint[:, None] ** 2))
         c, s = c * att, s * att
     # Two half-width operand streams instead of one concatenated
-    # (HW, 2K+1): jnp.concatenate is a TPU fusion boundary, and the
-    # concat form materialized cos/sin/att as three full f32 (B, HW, K)
-    # arrays (~2 ms/step on Hallway). As two bf16 stores the whole
-    # phase+poly+AA chain fuses into their producers.
+    # (HW, 2K+1): on the chip this was tuned for, the concat form
+    # materialized cos/sin/att as three full f32 (B, HW, K) arrays; as
+    # two bf16 stores the whole phase+poly+AA chain fuses into their
+    # producers.
     ca = c.astype(jnp.bfloat16)
     sa = s.astype(jnp.bfloat16)
 
     # W: (3T, K) channel-major amplitude rows; the DC term joins after
     # the slot selection (dc_pix below) instead of riding a ones
     # column. Channel-major ordering keeps the per-channel slot
-    # selection a contiguous slice (a (HW, T, 3) reshape forced a 4ms
+    # selection a contiguous slice (a (HW, T, 3) reshape would force a
     # layout copy).
     amps = coeffs_env[:, a0:a0 + 6 * k]  # (T, 6K) = [A(3K) | B(3K)]
     w_a = amps[:, :3 * k].reshape(n_slots, 3, k).transpose(1, 0, 2).reshape(
@@ -629,13 +652,11 @@ def eval_fourier(coeffs_env: jax.Array, slot: jax.Array, uv: jax.Array,
     w_b = amps[:, 3 * k:].reshape(n_slots, 3, k).transpose(1, 0, 2).reshape(
         3 * n_slots, k
     )
-    # bf16 OUTPUTS requested from the dots themselves: the MXU still
-    # accumulates in f32 and converts on the way out, but XLA then
-    # skips the separate full f32 (B, HW, T) materialization + convert
-    # pass the f32-dot + astype form emitted (profiled at ~10% of the
-    # Maze step). The bf16 add of the two rounded partials differs
-    # from round-after-f32-add by <= 1 bf16 ulp — under a u8 texel
-    # step.
+    # bf16 OUTPUTS requested from the dots themselves: the product
+    # still accumulates in f32 and converts on the way out, so XLA
+    # skips a separate f32 (B, HW, T) materialization + convert pass.
+    # The bf16 add of the two rounded partials differs from
+    # round-after-f32-add by <= 1 bf16 ulp — under a u8 texel step.
     sums = (
         jax.lax.dot_general(
             ca, w_a.astype(jnp.bfloat16),
@@ -648,11 +669,9 @@ def eval_fourier(coeffs_env: jax.Array, slot: jax.Array, uv: jax.Array,
             preferred_element_type=jnp.bfloat16,
         )
     )  # (HW, 3T) bf16, channel-major
-    # (An optimization_barrier here — to stop the per-channel slices
-    # propagating into the amplitude dots — was measured and LOST:
-    # Hallway 114.8k -> 86.0k, Maze 45.2k -> 43.2k. XLA's split
-    # per-channel convolution form beats a forced whole-dot
-    # materialization; leave the slicing alone.)
+    # (An optimization_barrier here, to stop the per-channel slices
+    # propagating into the amplitude dots, was slower on another chip;
+    # XLA is left to split the dots per channel.)
     if has_gain:
         dcg = jax.lax.dot_general(
             oh,
@@ -744,16 +763,9 @@ def eval_nearest(atlas: jax.Array, tex_map: jax.Array, slot: jax.Array,
     return jnp.where((slot_i >= 0)[:, None], texel, 1.0)
 
 
-def entity_mesh_rows(bank, layout_id, state, fourier: bool,
-                     return_valid: bool = False):
+def entity_mesh_rows(bank, layout_id, state, fourier: bool):
     """World-space triangle rows of every dynamic mesh entity:
-    (verts (E*M, 3, 3), attrs (E*M, ATTR_DIM)[, valid (E*M,) bool]).
-
-    ``return_valid`` additionally returns the live-row mask (active
-    non-static mesh entity AND real mesh row) — the Pallas path needs
-    it to build per-chunk AABBs that exclude the zeroed deactivated
-    rows (whose degenerate verts would otherwise inflate every box
-    toward the world origin).
+    (verts (E*M, 3, 3), attrs (E*M, ATTR_DIM)).
 
     Each SHAPE_MESH_TRIS prototype carries its decimated LOCAL-space
     triangle rows (scene/entities._mesh_tri_rows); per frame every
@@ -775,7 +787,7 @@ def entity_mesh_rows(bank, layout_id, state, fourier: bool,
 
     def world_rows(e):
         """One entity's rows in world space: verts (M,3,3), attrs
-        (M, ATTR_DIM), valid (M,)."""
+        (M, ATTR_DIM)."""
         p = state.ent_proto[e]
         rows = bank.proto_mesh[layout_id, p]  # (M, 25)
         rmask = bank.proto_mesh_mask[layout_id, p]
@@ -803,8 +815,8 @@ def entity_mesh_rows(bank, layout_id, state, fourier: bool,
         inv_su = 1.0 / jnp.maximum(su, 1e-9)
         a1 = rot(rows[:, 9:12]) * inv_su
         a2 = rot(rows[:, 12:15]) * inv_su
-        b1 = rows[:, 15] - a1 @ pos
-        b2 = rows[:, 16] - a2 @ pos
+        b1 = rows[:, 15] - matmul_f32(a1, pos)
+        b2 = rows[:, 16] - matmul_f32(a2, pos)
         nrm = rot(rows[:, 17:20])
         slot = rows[:, 23]
         if fourier:
@@ -825,13 +837,11 @@ def entity_mesh_rows(bank, layout_id, state, fourier: bool,
         # deactivated rows collapse to degenerate geometry (no hit)
         valid = rmask & active
         verts = jnp.where(valid[:, None, None], verts, 0.0)
-        return verts, attrs, valid
+        return verts, attrs
 
-    verts, attrs, valid = jax.vmap(world_rows)(jnp.arange(num_ents))
+    verts, attrs = jax.vmap(world_rows)(jnp.arange(num_ents))
     verts = verts.reshape(-1, 3, 3)  # (E*M, 3, 3)
     attrs = attrs.reshape(-1, ATTR_DIM)
-    if return_valid:
-        return verts, attrs, valid.reshape(-1)
     return verts, attrs
 
 
@@ -887,9 +897,7 @@ def _entity_mesh_pass(bank, layout_id, state, origin, rays, fourier: bool,
     # Keyed z-competition, like _tri_pass: the winner's row index rides
     # the low mantissa bits of r, making the winner UNIQUE per pixel —
     # coincident-row ties resolve to the larger row index (GL z-fight
-    # ties are order-dependent too) and the tie-normalize divide plus
-    # its full f32 (B, HW, 16) materialization disappear (profiled at
-    # ~9% of the PickupObjects step).
+    # ties are order-dependent too), with no tie-normalize divide.
     assert r.shape[0] <= (1 << _IDX_BITS), r.shape
     rkey = jax.lax.bitcast_convert_type(r, jnp.int32)
     idx = jax.lax.broadcasted_iota(jnp.int32, (r.shape[0], 1), 0)
@@ -901,11 +909,7 @@ def _entity_mesh_pass(bank, layout_id, state, origin, rays, fourier: bool,
     r_best = jax.lax.bitcast_convert_type(key_max & ~_IDX_MASK, jnp.float32)
     t_min = jnp.where(key_max > 0, 1.0 / jnp.maximum(r_best, 1e-30),
                       jnp.inf)
-    sel = jax.lax.dot_general(
-        ohf, attrs,
-        dimension_numbers=(((0,), (0,)), ((), ())),
-        preferred_element_type=jnp.float32,
-    ).astype(attr_dtype)  # (HW, ATTR_DIM)
+    sel = _select_rows(ohf, attrs, attr_dtype)  # (HW, ATTR_DIM)
     return t_min, sel
 
 
@@ -920,10 +924,8 @@ def _entity_pass(bank, layout_id, state, origin, rays,
     box-only scenes. Spheres stay analytic always (the source ball
     meshes are tessellated spheres, entity.py:445-452).
 
-    The former per-slot lax.scan carried (HW,) + 2x(HW, 3) buffers
-    through every iteration — profiled at ~27% of the PickupObjects
-    step in carry/select traffic. Now every slot's hit test runs as
-    (E, HW) broadcast work, the winner is picked with the keyed-z
+    Every slot's hit test runs as (E, HW) broadcast work (no per-slot
+    scan carrying (HW,) buffers), the winner is picked with the keyed-z
     index pack (unique, no tie handling), and the winner's normal is
     reconstructed once per pixel from one-hot-resolved entity
     parameters.
@@ -1024,10 +1026,13 @@ def _entity_pass(bank, layout_id, state, origin, rays,
     r_best = jax.lax.bitcast_convert_type(key_max & ~_IDX_MASK, jnp.float32)
     t_best = jnp.where(any_hit, 1.0 / jnp.maximum(r_best, 1e-30), jnp.inf)
 
-    # winner color via one MXU one-hot dot
+    # winner color via one one-hot dot. HIGHEST: K is the slot count
+    # (<= 18) and N = 3, so full f32 costs nothing measurable; TF32
+    # would round colours by <= 2^-11, under 1/8 of a u8 level.
     col_best = jax.lax.dot_general(
         ohf, state.ent_color,
         dimension_numbers=(((0,), (0,)), ((), ())),
+        precision=jax.lax.Precision.HIGHEST,
         preferred_element_type=jnp.float32,
     )  # (HW, 3)
 
@@ -1035,7 +1040,7 @@ def _entity_pass(bank, layout_id, state, origin, rays,
     # reduce over the leading slot axis — everything stays (E, HW)
     # elementwise work that XLA fuses into the reduction (a
     # winner-params + per-pixel-reconstruction variant materialized
-    # ~25 extra (HW,) f32 streams and REGRESSED Hallway 105k -> 85k).
+    # ~25 extra (HW,) f32 streams and was slower on another chip).
     if has_sphere:
         # n = (oc + t*d) / r_vis, componentwise with separable d
         inv_rv = 1.0 / jnp.maximum(r_vis, 1e-9)  # (E,)
@@ -1196,7 +1201,7 @@ def render_rgbd(
     use_key = tex["mode"] == "fourier" and domain_rand
     chunk_rows = None
     if pvs_packed and bank.pvs_v9_rows is not None and not use_key:
-        # one-hot MXU chunk read (see _tri_pass.read_chunk); the
+        # one-hot chunk read (see _tri_pass.read_chunk); the
         # dr-override path still slices pvs_tri_tex* itself, so it
         # keeps the dynamic_slice read
         ncl = bank.pvs_v9_rows.shape[0] // bank.pvs_verts9.shape[0]
@@ -1211,7 +1216,8 @@ def render_rgbd(
             # exact 0/1) — 27% fewer rows than the dense bank and no
             # inactive ones.
             use_p = (
-                bank.pg_sel_base[0] + state.wall_open @ bank.pg_sel_onehot[0]
+                bank.pg_sel_base[0]
+                + matmul_f32(state.wall_open, bank.pg_sel_onehot[0])
             )
             paired = (use_p, bank.pg_verts9_alt, bank.pg_attr_alt,
                       bank.pg_tex)
@@ -1223,7 +1229,7 @@ def render_rgbd(
             # scene/compile.Layout procgen fields)
             tri_active = (
                 bank.tri_active_base[0]
-                + state.wall_open @ bank.tri_wall_onehot[0]
+                + matmul_f32(state.wall_open, bank.tri_wall_onehot[0])
             )
     t_tri, attr = _tri_pass(
         v9_bank, at_bank, layout_id, origin, rays, tri_chunk,

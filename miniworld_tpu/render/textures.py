@@ -1,4 +1,4 @@
-"""Texture atlas construction for the TPU raycaster.
+"""Texture atlas construction for the raycaster.
 
 Replaces GL texture objects (miniworld/opengl.py:102-194) with a single
 uint8 atlas array ``(N, RES, RES, 3)`` uploaded once per env class.
@@ -18,9 +18,10 @@ import os
 from dataclasses import dataclass, field
 
 import numpy as np
-from PIL import Image
 
-from miniworld_tpu.utils.assets import texture_variant_paths
+from miniworld_tpu.utils.assets import (
+    png_size, read_png_rgb, resize_rgb, texture_variant_paths,
+)
 
 # Texels per meter used to generate wall/floor UVs
 # (reference: miniworld/miniworld.py:80).
@@ -31,18 +32,17 @@ TEX_DENSITY = 512
 # sources at 80x60 observation sizes.
 ATLAS_RES = 256
 
-# Fourier terms per texture for the gather-free TPU texture model.
+# Fourier terms per texture for the gather-free texture model.
 # Validated against the bundled assets: at K=32 the reconstruction RMSE
 # (0.008-0.045) beats an 8x8 mip (0.012-0.185) on every wall/floor
 # texture, i.e. it is sharper than what GL trilinear minification shows
 # at 80x60 observation sizes.
-# Default Fourier term count. Measured round 3 (PERF.md): rendered
-# error vs the exact nearest-sampling ground truth is identical at
-# K=16 and K=32 on every benchmarked env (PSNR within 0.1 dB — the
-# model's own error dominates truncation; the fit keeps terms
-# energy-sorted so truncation drops the weakest), while the per-pixel
-# texture stage — the largest render cost at small scene sizes —
-# scales linearly with K. K=8 visibly softens checkerboards. Glyph
+# Default Fourier term count: rendered error vs the exact
+# nearest-sampling ground truth is identical at K=16 and K=32 on every
+# benchmarked env (PSNR within 0.1 dB — the model's own error dominates
+# truncation; the fit keeps terms energy-sorted so truncation drops the
+# weakest), while the per-pixel texture stage scales linearly with K.
+# K=8 visibly softens checkerboards. Glyph
 # envs override per spec (Sign uses 64, envs/interact.py).
 FOURIER_TERMS = 16
 
@@ -51,18 +51,19 @@ def fit_fourier_texture(img: np.ndarray, k: int = FOURIER_TERMS,
                         gain: float = 1.0) -> np.ndarray:
     """Fit one texture to a K-term 2-D cosine series; returns packed f32.
 
-    TPU texturing rationale: XLA/TPU per-pixel gathers run at ~16 ns per
-    element (measured), which makes classic per-pixel atlas lookups the
-    dominant render cost by 50x. Instead each texture is approximated as
+    Texturing rationale (a design made for another chip, where per-pixel
+    gathers dominated the render cost; not yet measured on the GPU,
+    ROADMAP A3): instead of per-pixel atlas lookups, each texture is
+    approximated as
 
         texel(u, v) = dc + sum_k  A_k * cos(arg_k) + B_k * sin(arg_k),
         arg_k = 2*pi*(fu_k * u + fv_k * v)
 
     with INTEGER frequencies, so GL_REPEAT tiling (the reference wraps
     all wall/floor textures; miniworld/opengl.py:180-183) is free:
-    cos(2*pi*f*(u+n)) == cos(2*pi*f*u). Evaluation is pure VPU math on
-    the winning texture's coefficients, selected by a one-hot matmul —
-    zero gathers anywhere in the pixel pipeline.
+    cos(2*pi*f*(u+n)) == cos(2*pi*f*u). Evaluation is elementwise math
+    on the winning texture's coefficients, selected by a one-hot matrix
+    product — zero gathers anywhere in the pixel pipeline.
 
     Packing: [dc(3) | fu(K) | fv(K) | A(K*3) | B(K*3) | gain(1)]
     = 4 + 8K floats. ``gain`` is a contrast-expansion factor applied
@@ -173,19 +174,8 @@ def fit_sdf_texture(img: np.ndarray, k: int = FOURIER_TERMS,
 
 
 @functools.lru_cache(maxsize=None)
-def texture_pixel_size(path: str) -> tuple:
-    """(width, height) of a texture file, from the PNG header only."""
-    with Image.open(path) as im:
-        return im.size
-
-
-@functools.lru_cache(maxsize=None)
 def _load_tile(path: str, res: int) -> bytes:
-    with Image.open(path) as im:
-        im = im.convert("RGB")
-        if im.size != (res, res):
-            im = im.resize((res, res), Image.BILINEAR)
-        return np.asarray(im, dtype=np.uint8).tobytes()
+    return resize_rgb(read_png_rgb(path), res, res).tobytes()
 
 
 @dataclass
@@ -245,7 +235,7 @@ class TextureCatalog:
         size; variants of differing size would scale slightly
         differently under domain randomization (minor, documented).
         """
-        w, h = texture_pixel_size(texture_variant_paths(tex_name)[0])
+        w, h = png_size(texture_variant_paths(tex_name)[0])
         return TEX_DENSITY / w, TEX_DENSITY / h
 
     def build_atlas(self) -> np.ndarray:
@@ -261,7 +251,7 @@ class TextureCatalog:
     def build_fourier(self, k_terms: int = FOURIER_TERMS) -> np.ndarray:
         """(N, 4 + 8K) packed Fourier coefficients of all textures.
 
-        See ``fit_fourier_texture`` — the TPU render path evaluates
+        See ``fit_fourier_texture`` — the render path evaluates
         textures from this table with zero per-pixel gathers.
         """
         n = max(len(self.paths), 1)

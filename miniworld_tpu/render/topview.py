@@ -1,6 +1,6 @@
 """Orthographic top-down map rendering (render_top_view parity).
 
-TPU-native counterpart of MiniWorldEnv.render_top_view
+Jittable counterpart of MiniWorldEnv.render_top_view
 (miniworld/miniworld.py:1171-1258): an aspect-fit orthographic camera
 looking straight down at the full floorplan, reusing the raycaster's
 triangle/entity passes with parallel (instead of perspective) rays. The
@@ -80,7 +80,8 @@ def render_top_view(
         # quads and closed walls' junction content don't exist this
         # episode (signed activity matvec, scene/compile.Layout)
         tri_active = (
-            bank.tri_active_base[0] + state.wall_open @ bank.tri_wall_onehot[0]
+            bank.tri_active_base[0]
+            + raycast.matmul_f32(state.wall_open, bank.tri_wall_onehot[0])
         )
     t_tri, attr = _tri_pass_ortho(bank, state.layout_id, origins, down,
                                   tri_active=tri_active)
@@ -189,16 +190,17 @@ def _tri_pass_ortho(bank, layout_id, origins, dirs, tri_active=None):
         # u*det = d . (e2 x s) with s per (pixel, tri); for ortho rays
         # d is constant so compute via cross products directly.
         d = dirs[0]  # constant direction
-        det = g_det @ d  # (TC,)
+        det = raycast.matmul_f32(g_det, d)  # (TC,)
         # s = origins[p] - v0[t]: u_num = d . (e2 x s) = s . (d x e2)
         dxe2 = jnp.cross(jnp.broadcast_to(d, e2.shape), e2)  # (TC,3)
         e1xd = jnp.cross(e1, jnp.broadcast_to(d, e1.shape))  # (TC,3)
         # (HW,3)@(3,TC) matmuls with per-tri offsets
-        u_num = origins @ dxe2.T - jnp.sum(v0 * dxe2, axis=1)[None, :]
-        v_num = origins @ e1xd.T - jnp.sum(v0 * e1xd, axis=1)[None, :]
+        u_num = raycast.matmul_f32(origins, dxe2.T) - jnp.sum(v0 * dxe2, axis=1)[None, :]
+        v_num = raycast.matmul_f32(origins, e1xd.T) - jnp.sum(v0 * e1xd, axis=1)[None, :]
         n_tri = jnp.cross(e1, e2)  # (TC,3)
-        t_num = jnp.sum(v0 * n_tri, axis=1)[None, :] - origins @ n_tri.T
-        denom = n_tri @ d  # (TC,) = -det sign convention
+        t_num = jnp.sum(v0 * n_tri, axis=1)[None, :] - raycast.matmul_f32(
+            origins, n_tri.T)
+        denom = raycast.matmul_f32(n_tri, d)  # (TC,) = -det sign convention
 
         inv_det = 1.0 / jnp.where(jnp.abs(det) > 1e-12, det, 1.0)
         inv_den = 1.0 / jnp.where(jnp.abs(denom) > 1e-12, denom, 1.0)
@@ -224,7 +226,7 @@ def _tri_pass_ortho(bank, layout_id, origins, dirs, tri_active=None):
         ohf = (
             jnp.arange(t.shape[1])[None, :] == win[:, None]
         ).astype(jnp.float32)
-        sel = ohf @ attrs
+        sel = raycast.matmul_f32(ohf, attrs)
         closer = t_min < t_best
         return (
             jnp.where(closer, t_min, t_best),

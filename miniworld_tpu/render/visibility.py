@@ -9,7 +9,7 @@ base position inside a GL_ANY_SAMPLES_PASSED query
 in x/z, [y, y+0.2]). An entity is "visible" iff any sample of that
 box passes the depth test.
 
-The TPU-native equivalent reproduces the query per pixel: one
+The equivalent here reproduces the query per pixel: one
 PVS-culled triangle pass over the room geometry gives the static
 depth map, then each entity's query box is intersected analytically
 against the same pixel rays — visible iff some pixel hits the box
@@ -28,7 +28,7 @@ import jax
 import jax.numpy as jnp
 
 from miniworld_tpu.ops import geom
-from miniworld_tpu.render.raycast import FAR, NEAR, camera_rays
+from miniworld_tpu.render.raycast import FAR, NEAR, camera_rays, matmul_f32
 
 # Query box half-extent / height (miniworld/miniworld.py:1640-1647).
 BOX_R = 0.1
@@ -76,9 +76,9 @@ def _room_depth(bank, layout_id, origin, dirs, tri_chunk: int = 128,
         g_u = jnp.cross(e2, s)
         g_v = jnp.cross(s, e1)
         t_num = jnp.sum(e2 * g_v, axis=-1)
-        det = dirs @ g_det.T
-        u_num = dirs @ g_u.T
-        v_num = dirs @ g_v.T
+        det = matmul_f32(dirs, g_det.T)
+        u_num = matmul_f32(dirs, g_u.T)
+        v_num = matmul_f32(dirs, g_v.T)
         inv_det = 1.0 / jnp.where(det > 1e-12, det, 1.0)
         t = t_num[None, :] * inv_det
         # kind-blended coverage (raycast._tri_pass): tri prims need
@@ -119,7 +119,8 @@ def visible_ents(bank, state, width: int = 80, height: int = 60) -> jax.Array:
     tri_active = None
     if state.wall_open is not None and bank.tri_wall_onehot is not None:
         tri_active = (
-            bank.tri_active_base[0] + state.wall_open @ bank.tri_wall_onehot[0]
+            bank.tri_active_base[0]
+            + matmul_f32(state.wall_open, bank.tri_wall_onehot[0])
         )
     d_static = _room_depth(bank, state.layout_id, origin, dirs,
                            tri_active=tri_active)  # (HW,)

@@ -126,8 +126,8 @@ class Layout:
     tri_verts: np.ndarray  # (S,3,3) f32
     # component-major copy for the render chunk scan: rows are
     # [v0x v0y v0z v1x v1y v1z v2x v2y v2z] with triangles in the
-    # minor (lane) axis — per-chunk slices land lane-aligned instead
-    # of forcing (.., 3, 3) relayout copies (PERF.md round 2)
+    # minor axis — per-chunk slices are contiguous rows instead of
+    # (.., 3, 3) blocks with a tiny inner dimension
     tri_verts9: np.ndarray  # (9,S) f32
     tri_attr: np.ndarray  # (S,16) f32 packed render attrs (raycast.ATTR_DIM)
     tri_uv: np.ndarray  # (S,3,2) f32
@@ -201,9 +201,10 @@ class Layout:
     pvs_room_nchunks: np.ndarray | None = None  # (L,R) i32 chunks per room's set
     # Chunk-row views of the packed banks (vector._install_bank):
     # row layout*NC + c holds chunk c of that layout, flattened — the
-    # render scan reads its per-env chunk with ONE one-hot MXU matmul
-    # instead of a vmapped dynamic_slice (which XLA lowers as a
-    # while-loop gather over layouts, measured 4.5 ms/step on Maze).
+    # render scan reads its per-env chunk with ONE one-hot matrix
+    # product instead of a vmapped dynamic_slice (which lowered as a
+    # while-loop gather over layouts on the chip this was tuned for;
+    # not yet measured on the GPU, ROADMAP A4).
     pvs_v9_rows: np.ndarray | None = None  # (L*NC, 9*k) f32
     pvs_attr_rows: np.ndarray | None = None  # (L*NC, k*ATTR_DIM) f32
     # Procgen super-bank fields (scene/supermaze.py; None unless the env
@@ -425,8 +426,7 @@ def pack_tri_attrs(tri_verts, tri_uv, tri_normal, tri_color, tri_tex,
     color(3) | slot | kind]. (A, b) is the prim's affine texture map
     uv = A @ p + b for points p on its plane, so the renderer derives
     UVs from the hit point instead of selecting per-pixel barycentrics
-    (two (pixels x chunk) lane reductions per chunk — measured 19ms/step
-    at 1024 envs). The trailing column is the primitive kind
+    (two (pixels x chunk) reductions per chunk). The trailing column is the primitive kind
     (TriBatch.kinds: 1.0 triangle, 0.0 parallelogram; padding rows 0
     never hit because their verts are degenerate)."""
     S = tri_verts.shape[0]
@@ -562,9 +562,9 @@ def compile_world(world: World, with_pvs: bool = False) -> Layout:
     from miniworld_tpu.scene.entities import MESH_ROW_DIM
 
     # Boxes join the mesh-entity pass (12 exact rows) when the world
-    # already pays for it — merged boxes measured ~15% faster there —
-    # and keep the analytic OBB branch in box-only scenes (measured
-    # ~10% faster without the row machinery); see box_proto.
+    # already pays for it, and keep the analytic OBB branch in box-only
+    # scenes (each faster on the chip this was tuned for; not yet
+    # measured on the GPU); see box_proto.
     if any(p.shape == ent_lib.SHAPE_MESH_TRIS for p in world.protos):
         for p in world.protos:
             if p.shape == ent_lib.SHAPE_BOX:

@@ -22,15 +22,17 @@ radii/heights match the reference exactly for every shape
 
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass, field
 
 import numpy as np
 
-from miniworld_tpu.render.textures import texture_pixel_size
 from miniworld_tpu.scene.mesh import load_mesh
 from miniworld_tpu.scene.room import TriBatch
-from miniworld_tpu.utils.assets import texture_variant_paths
+from miniworld_tpu.utils.assets import (
+    png_size, read_png_rgb, resize_rgb, texture_variant_paths,
+)
 
 # Named colors (reference: miniworld/entity.py:30-40)
 COLORS = {
@@ -95,18 +97,18 @@ def _face_colors_areas(mesh):
         np.cross(v[:, 1] - v[:, 0], v[:, 2] - v[:, 0]), axis=1
     )
     colors = mesh.colors.copy()
-    tex_means = {}
     for t, tex in enumerate(mesh.tex_names):
         if tex is not None:
-            if tex not in tex_means:
-                from PIL import Image
-
-                with Image.open(tex) as im:
-                    tex_means[tex] = np.asarray(
-                        im.convert("RGB").resize((8, 8))
-                    ).reshape(-1, 3).mean(axis=0) / 255.0
-            colors[t] = colors[t] * tex_means[tex]
+            colors[t] = colors[t] * _texture_mean(tex)
     return colors, areas
+
+
+@functools.lru_cache(maxsize=None)
+def _texture_mean(path: str) -> np.ndarray:
+    """Mean colour in [0, 1] of a mesh texture: the mean of its 8x8
+    bicubic thumbnail (PIL's default ``Image.resize`` filter)."""
+    thumb = resize_rgb(read_png_rgb(path), 8, 8, "bicubic")
+    return thumb.reshape(-1, 3).mean(axis=0) / 255.0
 
 
 def _mesh_color(mesh) -> np.ndarray:
@@ -163,9 +165,9 @@ def box_proto(color: str, size=0.8) -> Proto:
 
     Default shape is the analytic OBB; scene compilation converts box
     protos to 12 mesh rows (SHAPE_MESH_TRIS, via ``_box_rows``) when
-    the world already runs the mesh-entity pass — merged boxes are
-    ~15%% faster there, while box-only scenes keep the cheaper
-    analytic branch (measured both ways on v5e; PERF.md round 2)."""
+    the world already runs the mesh-entity pass — merged boxes were
+    faster there, while box-only scenes keep the cheaper analytic
+    branch (measured both ways on another chip; not yet on the GPU)."""
     if isinstance(size, (int, float)):
         size = np.array([size, size, size], dtype=np.float64)
     size = np.asarray(size, dtype=np.float64)
@@ -321,7 +323,7 @@ def bake_image_frame(
     ``height`` defaults to preserving the image aspect ratio.
     """
     if height is None:
-        tw, th = texture_pixel_size(texture_variant_paths(tex_name)[0])
+        tw, th = png_size(texture_variant_paths(tex_name)[0])
         height = (th / tw) * width
     sx, hz, hy = depth, width / 2, height / 2
     r = rot_y(float(direction))

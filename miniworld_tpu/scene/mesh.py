@@ -1,6 +1,6 @@
 """Wavefront OBJ/MTL loading into flat triangle arrays.
 
-TPU-native replacement for the reference mesh loader
+Array-based replacement for the reference mesh loader
 (miniworld/objmesh.py): instead of building per-material pyglet vertex
 lists for GL, we bake every mesh into flat numpy triangle arrays
 (vertices, normals, per-vertex colors, texture UVs) ready to be packed

@@ -3,7 +3,7 @@
 Semantics mirror the reference Room (miniworld/miniworld.py:123-435):
 CCW convex outlines on the XZ plane, portals punched into walls, wall
 quads split around portals, ground-level collision segments. The output
-is *triangle soup + segment arrays* for the TPU raycaster instead of GL
+is *triangle soup + segment arrays* for the JAX raycaster instead of GL
 polygons.
 
 All math here is float64 numpy on host; the compiler downcasts to f32

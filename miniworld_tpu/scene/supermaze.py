@@ -45,17 +45,17 @@ import dataclasses
 import numpy as np
 
 from miniworld_tpu.ops import mazegen
-from miniworld_tpu.render.textures import TEX_DENSITY, texture_pixel_size
+from miniworld_tpu.render.textures import TEX_DENSITY
 from miniworld_tpu.scene.compile import (
     Layout, _room_local_segs, compile_world, pack_tri_attrs, tex_base_count,
 )
 from miniworld_tpu.scene.room import Room
 from miniworld_tpu.scene.world import World
-from miniworld_tpu.utils.assets import texture_variant_paths
+from miniworld_tpu.utils.assets import png_size, texture_variant_paths
 
 
 def _uv_mul(name):
-    w, h = texture_pixel_size(texture_variant_paths(name)[0])
+    w, h = png_size(texture_variant_paths(name)[0])
     return TEX_DENSITY / w, TEX_DENSITY / h
 
 

@@ -1,6 +1,6 @@
 """World builder: rooms + portals + entity slots -> compiled layout.
 
-This is the TPU-native replacement for the reference's world-building
+This is the array-compiling replacement for the reference's world-building
 API (MiniWorldEnv.add_rect_room / add_room / connect_rooms /
 place_entity / place_agent, miniworld/miniworld.py:815-1018). Env
 definitions call the same-shaped methods; the builder operates in one
@@ -9,7 +9,7 @@ of two modes:
   * **record mode** (``rng=None``): placements are recorded as rules
     (room constraint, bbox overrides, direction range, prototype
     choices) and executed *on device* at reset time under jax.random —
-    the vectorized TPU path.
+    the vectorized path.
   * **eager mode** (``rng`` = numpy Generator): placements are sampled
     immediately with the exact rejection-sampling loop and rng
     consumption order of the reference, so the gymnasium adapter
@@ -214,11 +214,11 @@ class World:
         variants in eager mode; miniworld.py:1070-1086)."""
         if self._wall_segs is not None:
             return
-        from miniworld_tpu.render.textures import TEX_DENSITY, texture_pixel_size
-        from miniworld_tpu.utils.assets import texture_variant_paths
+        from miniworld_tpu.render.textures import TEX_DENSITY
+        from miniworld_tpu.utils.assets import png_size, texture_variant_paths
 
         def uv_mul(name):
-            w, h = texture_pixel_size(texture_variant_paths(name)[0])
+            w, h = png_size(texture_variant_paths(name)[0])
             return TEX_DENSITY / w, TEX_DENSITY / h
 
         tris = TriBatch()

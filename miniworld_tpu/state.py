@@ -1,4 +1,4 @@
-"""Env state pytree for the TPU engine.
+"""Env state pytree for the vectorized engine.
 
 The reference's mutable object graph (Agent/Entity instances, room
 lists; miniworld/entity.py, miniworld/miniworld.py:558-618) becomes one
@@ -8,14 +8,25 @@ step in lockstep under jit+vmap and checkpoint trivially.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any
 
 import jax
 import jax.numpy as jnp
-from flax import struct
 
 
-@struct.dataclass
+def _pytree_dataclass(cls):
+    """Frozen dataclass registered as a pytree whose leaves follow the
+    field order, with a functional ``replace(**changes)``."""
+    cls = dataclasses.dataclass(frozen=True)(cls)
+    cls.replace = lambda self, **changes: dataclasses.replace(self, **changes)
+    return jax.tree_util.register_dataclass(
+        cls, data_fields=[f.name for f in dataclasses.fields(cls)],
+        meta_fields=[],
+    )
+
+
+@_pytree_dataclass
 class EnvState:
     # --- agent (reference: miniworld/entity.py:455-529) ---
     pos: jax.Array  # (3,) f32, floor-level position
@@ -62,10 +73,10 @@ class EnvState:
     wall_open: Any = None
 
     # env-specific task state (dict pytree; static structure per class)
-    task: Any = struct.field(default_factory=dict)
+    task: Any = dataclasses.field(default_factory=dict)
 
 
-@struct.dataclass
+@_pytree_dataclass
 class StepResult:
     """Side-channel outputs of the physics step used by task logic."""
 

@@ -1,6 +1,6 @@
 """Vectorized MiniWorld: thousands of envs under jit+vmap.
 
-This is the TPU-native execution engine the reference has no
+This is the batched execution engine the reference has no
 counterpart for (its README's "multiple processes" is one env per OS
 process; SURVEY.md §2.12): env state is a batched pytree, stepping is
 ``jit(vmap(step))``, resets happen on device (auto-reset included), and
@@ -43,8 +43,8 @@ _TRI_FIELDS = (
     "tri_tex_base", "tri_tex_count", "tri_color", "tri_mask",
     "tri_room", "tri_is_room", "room_pvs",
     # collision arrays are never gathered per env: physics/placement
-    # slice room-local (4, NS) packs from the bank instead (the full
-    # per-env (W, 2, 2) gather forced 13 ms/step layout copies on maze)
+    # slice room-local (4, NS) packs from the bank instead of gathering
+    # the full per-env (W, 2, 2) segment table
     "segs", "seg_mask", "room_segs",
     # procgen super-bank fields stay bank-indexed too
     "tri_wall", "tri_jwall", "tri_active_base", "tri_wall_onehot",
@@ -127,8 +127,8 @@ def _to_device(bank_np: Layout) -> Layout:
 # Fixed cost of one chunk-scan iteration expressed in triangle
 # equivalents (carry read/write + attr matmul + per-iteration
 # dynamic-slice/scalar stalls), used to pick the culling chunk size.
-# Profiled on v5e (Maze 8x8, B=1024): ~5 ms fixed per iteration vs
-# ~0.09 ms per triangle column.
+# Tuned on another chip, unmeasured on H100, see ROADMAP A6. Culling
+# is pixel-exact, so the value only decides the schedule.
 _CHUNK_OVERHEAD_TRIS = 56
 
 
@@ -262,7 +262,8 @@ def plan_packed_pvs(bank_np: Layout, chunk_cap: int,
 
     Returns (packed dict | None, tri_chunk, sched_len, modeled_cost);
     None when a single region covers everything (no culling value) or
-    the duplicated bank copies would exceed ``max_bytes``.
+    the duplicated bank copies would exceed ``max_bytes`` (a budget
+    tuned on another chip, unmeasured on H100, see ROADMAP A6).
     The duplicated copies are render-exact: the chunk scan's z/tie
     competition is partition-invariant (raycast._tri_pass).
     """
@@ -294,10 +295,10 @@ def plan_packed_pvs(bank_np: Layout, chunk_cap: int,
         candidates = [force_k]
     else:
         # fixed ladder + the chunk sizes that cover the WORST visible
-        # set in exactly 1 or 2 scan iterations: measured on chip
-        # (PERF.md round 3), one big fused chunk beats several small
-        # ones — per-iteration fixed costs (attr-carry roundtrip)
-        # rival the triangle math
+        # set in exactly 1 or 2 scan iterations: on the chip this was
+        # tuned for, one big fused chunk beat several small ones
+        # (per-iteration fixed costs rival the triangle math); tuned on
+        # another chip, unmeasured on H100, see ROADMAP A6
         ladder = [32, 48, 64, 96, 128, 160, 192, 224, 256,
                   _round_up16(-(-p_max // 2)), _round_up16(p_max)]
         candidates = sorted({k for k in ladder
@@ -338,10 +339,9 @@ def plan_packed_pvs(bank_np: Layout, chunk_cap: int,
         region_base = {}
         region_nchunks = {}
         pos = 0
-        # room centers for near-to-far region ordering (the Pallas
-        # kernel's occlusion early-out skips a chunk once every pixel's
-        # z-carry beats its nearest depth — only effective when nearer
-        # rooms render first; the XLA scan is order-invariant)
+        # room centers for near-to-far region ordering (the XLA scan
+        # itself is order-invariant; near-to-far order is what an
+        # occlusion early-out in a hand-written kernel would need)
         ra = bank_np.room_aabb[li]
         centers = np.stack(
             [(ra[:, 0] + ra[:, 1]) * 0.5, (ra[:, 2] + ra[:, 3]) * 0.5],
@@ -353,8 +353,8 @@ def plan_packed_pvs(bank_np: Layout, chunk_cap: int,
             # a plain distance sort: rooms at equal radius ring the
             # representative, and a sort puts opposite sides of the
             # ring in consecutive chunks — their AABBs then span the
-            # whole scene and neither the occlusion early-out nor the
-            # tile wedge test can ever fire. The chain keeps
+            # whole scene and no occlusion early-out or tile test could
+            # ever fire. The chain keeps
             # consecutive rooms spatially contiguous (corridors pack
             # in walk order) while still starting at the camera's room.
             cur_pt = centers[reps[0]] if reps else centers[0]
@@ -427,7 +427,6 @@ class MiniWorldVec:
         place_budget: int | None = None,  # None -> spec.place_budget
         tex_mode: str = "fourier",
         fourier_k: int | None = None,
-        render_backend: str = "auto",
         supersample: int = 1,
         procgen: bool | None = None,  # None -> spec.procgen_default
         view: str = "agent",
@@ -445,11 +444,6 @@ class MiniWorldVec:
         self.place_budget = (
             spec.place_budget if place_budget is None else place_budget
         )
-        # Auto-size the triangle chunk: the render scan materializes
-        # (B, H*W, tri_chunk) f32 intermediates. Bigger chunks mean
-        # fewer scan iterations (fewer carry read-writes — measured 30%
-        # on FourRooms going 64 -> 128 at B=1024); cap each intermediate
-        # at ~2.5 GB so XLA's buffer reuse keeps the peak inside HBM.
         # supersample=2: 2x2 ordered-grid edge AA (reference obs buffers
         # are 8x MSAA, opengl.py:219-261); ~4x render cost, opt-in
         assert supersample in (1, 2), supersample
@@ -457,32 +451,25 @@ class MiniWorldVec:
         hw = self.obs_width * self.obs_height * supersample ** 2
         self._hw = hw
         # Render micro-batching: serialize the render over sub-batches
-        # of ~B' envs (lax.map). Originally an HBM-pressure guard
-        # (B' x HW <= 1e7); a round-5 sweep on chip found much smaller
-        # sub-batches are FASTER outright — working sets stay resident
-        # while the map iterates: B' ~ 1024 at 80x60 for box-only
-        # scenes (Maze 8x8 B=8192: 45.1k -> 47.9k steps/s), B' ~ 256
+        # of ~B' envs (lax.map) so working sets stay small while the
+        # map iterates: B' ~ 1024 at 80x60 for box-only scenes, B' ~ 256
         # when the mesh-entity pass runs, whose (B', E*M, HW)
-        # intermediates dominate (PickupObjects B=4096: 52.8k -> 74.3k).
-        # The final value is set after the bank install (it needs
-        # shapes_present); this provisional bound only sizes the chunk
-        # cap below.
+        # intermediates dominate. Tuned on another chip, unmeasured on
+        # H100, see ROADMAP A6. The final value is set after the bank
+        # install (it needs shapes_present); this provisional bound
+        # only sizes the chunk cap below.
         eff_envs = min(num_envs, 1024)
-        # Chunk-size cap. Round-1 XLA materialized (B', HW, chunk)
-        # intermediates, forcing chunk*B'*HW*4 <= 2.5 GB; round-3
-        # profiling shows the t/hit work now fuses to (B', HW) outputs
-        # with no per-chunk materialization (the largest real buffers
-        # are the (B', HW, 16) attr resolves), and Maze ran chunk 384
-        # at B'=2048 x 4800 px without memory pressure. The cap is kept
-        # only as a runaway guard, 8x above any measured config.
+        # Chunk-size cap: a runaway guard on the (B', HW, chunk) work
+        # per scan iteration. The t/hit work fuses to (B', HW) outputs
+        # (the largest real buffers are the (B', HW, 16) attr
+        # resolves), so the cap sits far above any planned chunk.
         auto = int(4e10 / 4 / max(eff_envs * hw, 1))
         # full-scan chunk (user-tunable; None = the cap, i.e. as few
         # scan iterations as allowed — one whenever S fits, which also
-        # takes _tri_pass's no-scan fast path). Fewer iterations
-        # measured strictly faster since round 3 (Maze sched 4x96 ->
-        # 1x384: +10-22%; procgen Maze 8x8 dense 8x128 -> 1x832:
-        # 10.6k -> 21.3k steps/s, round 5). The packed-PVS planner
-        # explores up to _chunk_cap on its own either way.
+        # takes _tri_pass's no-scan fast path). Fewer, larger chunks
+        # were faster on the chip this was tuned for; tuned on another
+        # chip, unmeasured on H100, see ROADMAP A6. The packed-PVS
+        # planner explores up to _chunk_cap on its own either way.
         # 1024 = the z-key's index budget (raycast._IDX_BITS)
         self._chunk_cap = min((auto // 16) * 16 or 16, 1024)
         self.tri_chunk = max(
@@ -502,19 +489,6 @@ class MiniWorldVec:
         if fourier_k is None:  # spec override, else global default
             fourier_k = getattr(spec, "fourier_k", 0) or FOURIER_TERMS
         self.fourier_k = fourier_k
-        # The XLA raycaster is the only backend: two generations of
-        # fused Pallas kernels lost to it on every BASELINE config and
-        # were retired on measurement (PERF.md "Pallas kernels:
-        # retired"). The flag is kept for call-site compatibility.
-        if render_backend == "auto":
-            render_backend = "xla"
-        if render_backend != "xla":
-            raise ValueError(
-                f"render_backend={render_backend!r}: the Pallas kernel "
-                "was retired after losing to the XLA raycaster on every "
-                "measured config (PERF.md); only 'xla'/'auto' remain"
-            )
-        self.render_backend = render_backend
         # Procgen mode: a fresh recursive-backtracker maze is generated
         # ON DEVICE at every reset (reference reset semantics,
         # miniworld/envs/maze.py:100-149) instead of cycling a compiled
@@ -541,8 +515,9 @@ class MiniWorldVec:
             )
         self._install_bank(bank_np, tex_np, fresh=True)
 
-        # Final sub-batch size (see the sweep note above): pixel budget
-        # ~B'_opt x 4800, scaled by the actual obs size.
+        # Final sub-batch size (see the note above): pixel budget
+        # ~B' x 4800, scaled by the actual obs size. Tuned on another
+        # chip, unmeasured on H100, see ROADMAP A6.
         px_budget = 1.25e6 if self._shapes_present[2] else 5.0e6
         self.render_microbatch = 1
         while (
@@ -828,8 +803,8 @@ class MiniWorldVec:
 
     def _sample_param_u(self, u3, name):
         """Like _sample_param but from a (3,) counter-based uniform row
-        (ops/rng.py) — the reset path's draw source (threefry while
-        loops vmapped over envs cost ~14% of the Maze step)."""
+        (ops/rng.py) — the reset path's draw source (see ops/rng.py
+        for why reset avoids jax.random)."""
         p = self.spec.params.params[name]
         if not self.domain_rand:
             return jnp.asarray(p.default, dtype=jnp.float32)
@@ -844,11 +819,10 @@ class MiniWorldVec:
 
     def _reset_one(self, bank: Layout, key: jax.Array) -> EnvState:
         """Reset one env. All reset-time draws are counter-based
-        uniforms from ops/rng.py keyed on this reset key's data words:
-        jax.random primitives lower threefry as rolled while-loops
-        whose latency, vmapped over envs in the auto-reset path (every
-        step computes a reset for every env), profiled at ~14% of the
-        Maze 8x8 step. Only the episode rng / spec hook keep real PRNG
+        uniforms from ops/rng.py keyed on this reset key's data words
+        (every step computes a reset for every env in the auto-reset
+        path, so its draws should be cheap elementwise math; see
+        ops/rng.py). Only the episode rng / spec hook keep real PRNG
         keys (one split)."""
         from miniworld_tpu.ops import rng as rng_ops
 
@@ -1264,11 +1238,11 @@ class MiniWorldVec:
         """Build a jittable fused rollout: one XLA program scanning
         ``horizon`` env steps on device (step + render per step).
 
-        This is the TPU-idiomatic execution shape: dispatching one
-        program per step leaves the chip idle between host round-trips,
-        while ``lax.scan`` keeps the whole trajectory on device (the
-        reference has no analog — its loop is host-driven by
-        construction, miniworld/manual_control.py:288-383).
+        This is the accelerator-idiomatic execution shape: dispatching
+        one program per step leaves the device idle between host
+        round-trips, while ``lax.scan`` keeps the whole trajectory on
+        device (the reference has no analog — its loop is host-driven
+        by construction, miniworld/manual_control.py:288-383).
 
         Args:
           horizon: steps per call.
@@ -1314,7 +1288,7 @@ class MiniWorldVec:
                     # obs checksum: forces rendering to be materialized
                     # even when observations aren't returned; a sparse
                     # pixel sample keeps the data dependency without
-                    # paying a full-image reduction per step (0.3ms).
+                    # paying a full-image reduction per step.
                     "obs_sum": jnp.sum(
                         rgb_leaf[:, ::8, ::8].astype(jnp.uint32)
                     ),

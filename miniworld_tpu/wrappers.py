@@ -3,7 +3,7 @@
 Two families:
   * gymnasium wrappers for the single-env adapter — drop-in parity with
     the reference classes (same names, same math);
-  * pure functions for the vectorized TPU path (apply under jit to the
+  * pure functions for the vectorized path (apply under jit to the
     batched obs), since gymnasium wrappers can't wrap a jitted batch.
 """
 

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Quantify 1-spp rendering vs the reference's 8x MSAA (VERDICT #7).
+"""Quantify 1-spp rendering vs the reference's 8x MSAA .
 
 The reference's obs framebuffer resolves 8 samples per pixel
 (miniworld/miniworld.py:516-519, miniworld/opengl.py:219-261); the
@@ -66,13 +66,13 @@ def edge_mask(depth: np.ndarray, thresh: float = 0.2) -> np.ndarray:
 
 def bench(env, state, obs, horizon=30, trials=2):
     state, obs, outs = env.rollout(state, obs, jax.random.key(1), horizon)
-    float(jax.device_get(outs["obs_sum"]).sum())  # fetch = honest fence (PERF.md)
+    float(jax.device_get(outs["obs_sum"]).sum())  # fence
     best = 0.0
     for t in range(trials):
         t0 = time.perf_counter()
         state, obs, outs = env.rollout(state, obs, jax.random.key(2 + t),
                                        horizon)
-        float(jax.device_get(outs["obs_sum"]).sum())  # fetch = honest fence (PERF.md)
+        float(jax.device_get(outs["obs_sum"]).sum())  # fence
         best = max(best, horizon * env.num_envs / (time.perf_counter() - t0))
     return best
 

@@ -28,7 +28,7 @@ All {n} registered environment IDs of the reference
 (NomanTrips/Miniworld) are available, with identical observation and
 action contracts, on both execution paths:
 
-* `MiniWorldVec` — the vectorized TPU engine (jit + vmap, on-device
+* `MiniWorldVec` — the vectorized engine (jit + vmap, on-device
   auto-reset, fused rollouts);
 * `miniworld_tpu.register_gym()` + `gym.make(id)` — the single-env
   float64 gymnasium adapter, trajectory-bit-exact against the

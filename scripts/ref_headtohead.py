@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""BASELINE config 1 head-to-head (VERDICT r4 item 4): the ACTUAL
+"""Single-env head-to-head: the ACTUAL
 reference running under tests/ref_shim vs the gym adapter, identical
 protocol (Hallway, single env, 80x60, random discrete policy, 1k
 steps, CPU; reference benchmark recipe scripts/benchmark.py:10-48).
@@ -10,7 +10,7 @@ the adapter's skip_obs=True mode (physics + task logic only).
 
     python scripts/ref_headtohead.py ref|ours|noobs
 
-Measured 2026-08-20 (this machine, CPU):
+Measured on a CPU-only development machine:
     ref   (physics only, render stubbed):  load 226 ms, reset 3.1 ms,  2,285 FPS
     noobs (ours, physics only):            load  58 ms, reset 1.1 ms, 12,942 FPS
     ours  (ours, REAL 80x60 rendering):    load 8.6 s,  reset 54 ms,      91 FPS

@@ -18,7 +18,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."
 
 import jax
 
-jax.config.update("jax_platforms", "cpu")  # never claim the TPU chip
+jax.config.update("jax_platforms", "cpu")  # never claim an accelerator
 
 import numpy as np
 

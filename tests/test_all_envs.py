@@ -1,6 +1,6 @@
 """Whole-suite smoke: every registered env id builds, resets, steps.
 
-TPU-path analog of tests/test_miniworld.py:107-128 (test_all_envs runs
+Vectorized-path analog of tests/test_miniworld.py:107-128 (test_all_envs runs
 15 resets x 20 random steps on every id; here budgets are tighter since
 XLA compiles per env class)."""
 

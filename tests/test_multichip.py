@@ -20,9 +20,13 @@ from miniworld_tpu.parallel import (
 PER_DEVICE = 2
 W, H = 32, 24
 
-pytestmark = pytest.mark.skipif(
-    jax.device_count() < 8, reason="needs the 8-device virtual mesh"
-)
+
+@pytest.fixture(autouse=True)
+def _eight_devices():
+    """Decided per test, not at import: every xdist worker must collect
+    the same tests."""
+    if jax.device_count() < 8:
+        pytest.skip("needs the 8-device virtual mesh (tests/conftest.py)")
 
 
 @pytest.mark.parametrize("n_dev", [2, 4, 8])
@@ -81,8 +85,7 @@ def test_train_step_has_learner_collective():
 
 
 def test_refresh_layouts_under_sharding():
-    """Recompile-free bank refresh on a sharded env (round-4 VERDICT
-    item 10): swapping in a regenerated layout bank mid-rollout must
+    """Recompile-free bank refresh on a sharded env: swapping in a regenerated layout bank mid-rollout must
     not retrace the sharded program (banks are jit ARGUMENTS) and the
     new geometry must be visible on every shard."""
     from miniworld_tpu.envs.nav import MazeS3

@@ -2,8 +2,8 @@
 line-for-line transcription of the reference step,
 miniworld/miniworld.py:677-813) is the golden model; the f32 vectorized
 device path must track it within float tolerance on identical
-scenarios. This realizes the BASELINE.md correctness target without
-needing the reference's GL stack installed."""
+scenarios. This realizes the bit-exact-trajectory correctness target
+without needing the reference's GL stack installed."""
 
 import math
 

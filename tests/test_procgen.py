@@ -2,7 +2,7 @@
 
 The reference regenerates the maze every reset with a recursive
 backtracker (miniworld/envs/maze.py:100-149). These tests check the
-TPU path end to end: the jittable generator's distribution matches the
+vectorized path end to end: the jittable generator's distribution matches the
 reference's recursion, the super-bank render is pixel-equal to an
 eager compile of the same wall bitmask, and physics/placement respect
 the per-env bitmask.
@@ -149,7 +149,7 @@ def test_superbank_pixel_parity_vs_eager():
         assert frac > 0.998, (pos, d, frac)
         dd = np.abs(np.asarray(dep_s) - np.asarray(dep_e))
         assert float(np.quantile(dd, 0.998)) < 1e-3, (pos, d)
-        # Pin the residue (round-4 VERDICT #7): every rgb-differing
+        # Pin the residue: every rgb-differing
         # pixel must lie ON a depth-coincident surface pair — both
         # renders agree on depth there to within the keyed-z mantissa
         # quantum (~2^-13 relative) — so a real 3-pixel rendering bug

@@ -5,7 +5,7 @@ the fake-pyglet shim (tests/ref_shim) with rendering stubbed; its real
 physics, np_random consumption, rewards and terminations are compared
 step-by-step against the float64 host adapter (gym_env.py) — the
 "bit-exact trajectories/rewards/terminations vs reference, fixed seed"
-target from BASELINE.md, verified against the reference itself rather
+correctness target, verified against the reference itself rather
 than our own transcription.
 
 Golden fixtures recorded from the reference are also checked in

@@ -94,22 +94,29 @@ def test_gae_matches_direct_recursion():
 
 def test_multihost_init_fail_fast(monkeypatch):
     """Failure injection (SURVEY.md §5): with a coordinator address
-    configured, a distributed-init error must RAISE, not degrade to a
-    silent single-host run; without one, the single-process fallback
-    stays quiet."""
+    configured, init gets the configured address/count/id and its error
+    RAISES instead of degrading to a silent single-process run; without
+    one, distributed init is not attempted at all."""
     from miniworld_tpu.parallel import mesh as pmesh
 
-    def boom():
+    calls = []
+
+    def boom(**kwargs):
+        calls.append(kwargs)
         raise RuntimeError("injected: coordinator unreachable")
 
     monkeypatch.setattr(jax.distributed, "initialize", boom)
     monkeypatch.setenv("JAX_COORDINATOR_ADDRESS", "10.0.0.1:1234")
-    with pytest.raises(RuntimeError, match="fail-fast"):
+    monkeypatch.setenv("JAX_NUM_PROCESSES", "2")
+    monkeypatch.setenv("JAX_PROCESS_ID", "1")
+    with pytest.raises(RuntimeError, match="injected"):
         pmesh.init_multihost()
+    assert calls == [{"coordinator_address": "10.0.0.1:1234",
+                      "num_processes": 2, "process_id": 1}]
 
     monkeypatch.delenv("JAX_COORDINATOR_ADDRESS")
-    monkeypatch.delenv("COORDINATOR_ADDRESS", raising=False)
-    pmesh.init_multihost()  # must not raise
+    pmesh.init_multihost()  # must not raise, nor call initialize
+    assert len(calls) == 1
 
 
 def test_continuous_gaussian_head():

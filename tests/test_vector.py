@@ -1,6 +1,6 @@
 """Vectorized env engine tests: shapes, determinism, invariants,
 auto-reset, fused rollout. Mirrors the reference test strategy
-(tests/test_miniworld.py:19-128) on the TPU execution path."""
+(tests/test_miniworld.py:19-128) on the vectorized execution path."""
 
 import jax
 import jax.numpy as jnp
